@@ -1,25 +1,32 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU, and check it.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py        # from the root of a checkout, on a GPU host
 
 Phases (any failure exits non-zero and prints no result):
 
-  1. build    — compile the path's kernel from ``src/repro_torch``'s CUDA
-                source with ``nvcc``;
+  1. build    — compile every kernel's CUDA source under ``src/repro_torch``
+                with ``nvcc``, one process per source, all at once, and log
+                each kernel's registers, shared memory and spills;
   2. kernels  — hold each kernel against its plain PyTorch version on the
-                card, at the path's shapes and at edge cases;
+                card, at the paths' shapes and at edge cases;
   3. serve    — full-width granite-3-2b (random weights from a seed, bf16):
                 ``ServingEngine`` serves 8 sessions x 2 turns on 2 rows while
                 one row dies between the turns, so sessions recover from
                 their KV checkpoints; every attention step must go through
-                the kernel, and the outputs must equal a healthy run's.  A
-                small fp32 drive must give the CPU's plain path's tokens;
-  4. step     — one full-width fp32 ``decode_step``, kernel against plain
-                (its fp32 weights are freed before the times);
-  5. times    — each kernel, its plain version and one PyTorch library call
+                the decode kernel, and the outputs must equal a healthy
+                run's.  A small fp32 drive must give the CPU's plain path's
+                tokens;
+  4. prefill  — the same model prefills 4 prompts of 2,048 tokens in one
+                batch (every layer's attention through the flash kernel),
+                places each row's cache in a serving slot and decodes 16
+                greedy tokens from it;
+  5. fp32     — full-width fp32: one ``decode_step`` and one 256-token
+                ``prefill``, kernel against plain, and prefill against
+                decode (its fp32 weights are freed before the times);
+  6. times    — each kernel, its plain version and one PyTorch library call
                 on the same inputs, beside the card's least time for the
-                work; ``decode_step`` time.
+                work; ``decode_step`` and ``prefill`` times and profiles.
 
 The lines before the last carry the card's name and power limit
 (``nvidia-smi``) and one JSON object ``{"kernels": [...]}``; the last line
@@ -50,10 +57,18 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # full-width fp32 decode step: 40 layers of residual stream carry the
 # attention's summation-order differences (~1e-7 each) into the logits
 STEP_TOL = 2e-3
+# the prefill path: a batch of prompts, each placed in a slot of a row
+# cache, then greedy decoding; the fp32 check prefills one shorter prompt
+PB, PS, ROW_SLOTS, ROW_SMAX, PGEN, FP32_PROMPT = 4, 2048, 8, 2560, 16, 256
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
 BF16_FLOPS = 989e12            # dense tensor-core bf16, the same source
-SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
-REPLACES = "src/repro/kernels/decode_attention.py:68"     # the TPU kernel
+# each kernel: its source, and the TPU kernel it replaces
+KERNELS = {
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:68"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:80"),
+}
 
 
 def log(*a):
@@ -121,6 +136,62 @@ def phase_kernels(gen):
                 f" (tol {TOL[dt]})")
             check(torch.allclose(got.float(), want.float(), atol=TOL[dt],
                                  rtol=TOL[dt]), f"kernel != plain: {name} {dt}")
+    return errs
+
+
+# the flash kernel's cases: the prefill path's shape (granite-3-2b, 4 x 2048
+# tokens) and its variants; every case runs in fp32 and in bf16
+FLASH = dict(B=4, S=2048, T=2048, H=H, K=K, D=D)
+FLASH_CASES = [
+    ("path", {}),
+    ("window", dict(window=128)),
+    ("bidirectional", dict(causal=False)),
+    ("softcap", dict(softcap=50.0)),
+    ("q_offset", dict(S=256, q_offset=1792)),
+    ("mla", dict(H=16, K=16, D=192, Dv=128)),
+    ("ragged", dict(S=1000, T=1000)),
+    ("mqa", dict(K=1)),
+    ("head_dim_128", dict(H=40, K=8, D=128)),
+    # rows 127.. keep no key (q_offset + i >= T + window - 1), so they
+    # average every value; the tile of rows 64..127 mixes both kinds
+    ("masked_rows", dict(S=256, T=256, q_offset=192, window=64)),
+    # q, k and v as head slices of one fused (B, S, H + 2K, D) tensor: the
+    # kernel reads them through their strides
+    ("fused_qkv", dict(fused=True)),
+]
+
+
+def flash_inputs(gen, dtype, B, S, T, H, K, D, Dv=None, fused=False, **kw):
+    import torch
+    if fused:
+        qkv = torch.randn((B, S, H + 2 * K, D), generator=gen,
+                          device="cuda").to(dtype)
+        return (qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:]), kw
+    q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, T, K, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, T, K, Dv or D), generator=gen, device="cuda").to(dtype)
+    return (q, k, v), kw
+
+
+def phase_flash(gen):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    errs = {}
+    for name, over in FLASH_CASES:
+        for dt in ("float32", "bfloat16"):
+            (q, k, v), kw = flash_inputs(gen, getattr(torch, dt),
+                                         **{**FLASH, **over})
+            got = flash_attention(q, k, v, **kw)
+            want = ref.mha(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            errs[(name, dt)] = err
+            log(f"  flash_attention  {name:13s} {dt:9s} max|err| {err:.3e}"
+                f" (tol {TOL[dt]})")
+            check(torch.allclose(got.float(), want.float(), atol=TOL[dt],
+                                 rtol=TOL[dt]), f"kernel != plain: {name} {dt}")
+            del got, want
     return errs
 
 
@@ -239,9 +310,81 @@ def phase_small_against_cpu(torch, cfg):
 
 # -- phase 4 ------------------------------------------------------------------
 
-def phase_step(torch, cfg, gen):
+def prompts(torch, cfg, seed, b, s):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).cuda()
+
+
+def phase_prefill(torch, model):
+    """Prefill PB prompts of PS tokens, place each row's cache in a slot of
+    a row cache and decode PGEN greedy tokens there."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.serving import kv_cache
+    cfg = model.cfg
+    toks = prompts(torch, cfg, SEED, PB, PS)
+    # the drive the launch counts are read from: counts set to 0 just before
+    flash_attention.launches = decode_attention.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = model.prefill({"tokens": toks})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    flash, dec = flash_attention.launches, decode_attention.launches
+    log(f"  prefill {PB} x {PS} tokens: {flash} flash_attention launches, "
+        f"{dec} decode_attention, {wall:.2f} s wall (first call)")
+    check(flash == cfg.n_layers and dec == 0,
+          f"{flash} flash launches (and {dec} decode) in one prefill, not "
+          f"{cfg.n_layers}")
+    check(tuple(logits.shape) == (PB, cfg.vocab_size), "prefill logits shape")
+    check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+    K, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    check(all(tuple(t.shape) == (cfg.n_layers, PB, PS, K, Dh)
+              and t.dtype == cfg.compute_dtype for t in cache.values()),
+          "prefill cache layout")
+
+    row = model.init_cache(ROW_SLOTS, ROW_SMAX)
+    slots = [1, 2, 5, 7]
+    for b, slot in enumerate(slots):
+        kv_cache.write_slot(row, {n: t[:, b:b + 1] for n, t in cache.items()},
+                            slot)
+    check(all(torch.equal(row[n][:, slot, :PS], cache[n][:, b])
+              for n in row for b, slot in enumerate(slots)),
+          "write_slot did not place the prefill cache")
+    del cache
+    live = torch.zeros(ROW_SLOTS, dtype=torch.bool, device="cuda")
+    live[slots] = True
+    tokens = torch.zeros(ROW_SLOTS, dtype=torch.long, device="cuda")
+    tokens[slots] = logits.argmax(-1)
+    lengths = torch.where(live, PS, 0).to(torch.int32)
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    out = []
+    flash_attention.launches = decode_attention.launches = 0
+    for _ in range(PGEN):
+        step_logits, _ = model.decode_step(tokens, lengths, row, commit=live)
+        bad += (~torch.isfinite(step_logits[live])).sum()
+        tokens = torch.where(live, step_logits.argmax(-1), tokens)
+        lengths += live.to(torch.int32)
+        out.append(tokens[slots])
+    torch.cuda.synchronize()
+    flash_d, dec = flash_attention.launches, decode_attention.launches
+    log(f"  {PGEN} greedy decode steps from the placed caches: {dec} "
+        f"decode_attention launches, {flash_d} flash; first tokens "
+        f"{torch.stack(out, 1)[:, :4].tolist()}")
+    check(dec == cfg.n_layers * PGEN and flash_d == 0,
+          f"{dec} decode launches in {PGEN} steps")
+    check(int(bad) == 0, "non-finite logits decoding after prefill")
+    del row
+    return flash
+
+
+# -- phase 5 ------------------------------------------------------------------
+
+def phase_fp32(torch, cfg, gen):
+    """Full-width fp32: one decode step and one prefill, kernel against
+    plain, and prefill against decode."""
     from repro_torch.kernels import ref
     from repro_torch.models import Model, layers
+    from repro_torch.serving import kv_cache
     f32 = dataclasses.replace(cfg, param_dtype=torch.float32,
                               compute_dtype=torch.float32)
     model = Model(f32).init(gen)
@@ -263,10 +406,46 @@ def phase_step(torch, cfg, gen):
     check(err <= STEP_TOL, "full-width step: kernel != plain")
     check(bool(torch.equal(got.argmax(-1), want.argmax(-1))),
           "full-width step: greedy tokens differ")
+    del cache
+
+    toks = prompts(torch, cfg, SEED + 1, 1, FP32_PROMPT)
+    got, got_cache = model.prefill({"tokens": toks})
+    with mock.patch.object(layers.ops, "mha", ref.mha):
+        want, want_cache = model.prefill({"tokens": toks})
+    errs = {"logits": (got - want).abs().max().item()}
+    errs.update({n: (got_cache[n] - want_cache[n]).abs().max().item()
+                 for n in got_cache})
+    log(f"  fp32 prefill of {FP32_PROMPT} tokens, kernel vs plain: max|err| "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f" (tol {STEP_TOL})")
+    check(max(errs.values()) <= STEP_TOL, "full-width prefill: kernel != plain")
+    check(bool(torch.equal(got.argmax(-1), want.argmax(-1))),
+          "full-width prefill: greedy tokens differ")
+    del want_cache, got_cache
+
+    # the last token through decode_step over the prefill of the others
+    _, head = model.prefill({"tokens": toks[:, :-1]})
+    row = model.init_cache(1, FP32_PROMPT)
+    kv_cache.write_slot(row, head, 0)
+    dec, _ = model.decode_step(toks[:, -1], torch.full(
+        (1,), FP32_PROMPT - 1, dtype=torch.int32, device="cuda"), row)
+    err = (dec - got).abs().max().item()
+    log(f"  fp32 prefill({FP32_PROMPT - 1}) + decode_step vs prefill("
+        f"{FP32_PROMPT}), last position: max|err| {err:.3e} (tol {STEP_TOL})")
+    check(err <= STEP_TOL, "prefill then decode != prefill")
+    check(bool(torch.equal(dec.argmax(-1), got.argmax(-1))),
+          "prefill then decode: greedy token differs")
     return err
 
 
-# -- phase 5 ------------------------------------------------------------------
+# -- phase 6 ------------------------------------------------------------------
+
+def bound(nbytes, flops):
+    """The card's least time for the work (ms), and which rate bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
 
 def phase_times(torch, model, gen):
     """decode_attention at the path's shapes, cold in L2 as on the path:
@@ -292,9 +471,7 @@ def phase_times(torch, model, gen):
     kv = int(lengths.clamp(max=SMAX).sum()) * K * (D + D) * 2
     nbytes = kv + q.numel() * 2 * 2 + B * 4
     flops = int(lengths.clamp(max=SMAX).sum()) * H * (2 * D + 2 * D)
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-    by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS \
-        else "operations"
+    bound_ms, by = bound(nbytes, flops)
     log(f"  decode_attention bf16 B={B} H={H} K={K} D={D} Smax={SMAX} "
         f"(sum len {int(lengths.clamp(max=SMAX).sum())}): kernel {ms:.4f} ms"
         f", plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
@@ -308,7 +485,8 @@ def phase_times(torch, model, gen):
     step_ms = host_ms(lambda: model.decode_step(tokens, lens, cache,
                                                 commit=one), 20)
     busy = device_profile(lambda: model.decode_step(tokens, lens, cache,
-                                                    commit=one))
+                                                    commit=one),
+                          "decode_attention_kernel")
     decode_attention.launches = before
     log(f"  decode_step bf16 full width, B={B}, len {SMAX // 2}: "
         f"{step_ms:.3f} ms on the host clock; {B / step_ms * 1e3:.1f} tok/s "
@@ -319,7 +497,61 @@ def phase_times(torch, model, gen):
         f"{busy['attn_ms']:.3f} ms ({busy['attn_ms'] / busy['busy_ms']:.1%}"
         f" of device time)")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=by), step_ms
+                bound_ms=bound_ms, bound_by=by)
+
+
+def mha_pairs(S, T, causal=True, window=0, q_offset=0):
+    """(query, key) pairs that ``mha``'s mask keeps, per (row, head); a
+    row that keeps none averages all T keys."""
+    n = 0
+    for i in range(S):
+        qp = q_offset + i
+        hi = min(T, qp + 1) if causal else T
+        lo = max(0, qp - window + 1) if window > 0 else 0
+        n += hi - lo if lo < hi else T
+    return n
+
+
+def phase_flash_times(torch, model, gen):
+    """flash_attention at the prefill path's shape (bf16), its plain
+    version and SDPA on the same inputs; then one full-width prefill."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    (q, k, v), _ = flash_inputs(gen, torch.bfloat16, **FLASH)
+    before = flash_attention.launches
+    ms = event_ms(lambda i: flash_attention(q, k, v), 20)
+    plain_ms = event_ms(lambda i: ref.mha(q, k, v), 3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = event_ms(lambda i: sdpa(qt, kt, vt, is_causal=True,
+                                     enable_gqa=True), 20)
+    flash_attention.launches = before   # timing launches are not the path's
+    Bq, S, Hq, Dq = q.shape
+    T, Dv = k.shape[1], v.shape[-1]
+    pairs = Bq * Hq * mha_pairs(S, T)
+    flops = pairs * 2 * (Dq + Dv)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound_ms, by = bound(nbytes, flops)
+    log(f"  flash_attention bf16 causal B={Bq} S=T={S} H={Hq} K={k.shape[2]}"
+        f" D={Dq}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+        f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {by} ({pairs} pairs, "
+        f"{flops} flop, {nbytes} B); kernel at "
+        f"{flops / ms / 1e9:.1f} TFLOP/s")
+    del q, k, v, qt, kt, vt
+
+    toks = prompts(torch, model.cfg, SEED, PB, PS)
+    pre_ms = host_ms(lambda: model.prefill({"tokens": toks}), 3)
+    busy = device_profile(lambda: model.prefill({"tokens": toks}),
+                          "flash_attention_kernel", iters=1)
+    flash_attention.launches = before
+    log(f"  prefill bf16 full width, {PB} x {PS} tokens: {pre_ms:.3f} ms on "
+        f"the host clock, {PB * PS / pre_ms * 1e3:.0f} tokens/s")
+    log(f"  prefill profile: device busy {busy['busy_ms']:.3f} ms "
+        f"({busy['busy_ms'] / pre_ms:.1%} of the call), {busy['launches']} "
+        f"device kernels, flash_attention {busy['attn_ms']:.3f} ms "
+        f"({busy['attn_ms'] / busy['busy_ms']:.1%} of device time)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=by)
 
 
 def host_ms(fn, iters):
@@ -334,8 +566,9 @@ def host_ms(fn, iters):
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def device_profile(fn, iters=2):
-    """Device time and launches per call of ``fn()``, from torch.profiler."""
+def device_profile(fn, kernel, iters=2):
+    """Device time, the named kernel's device time and launches per call of
+    ``fn()``, from torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -355,8 +588,19 @@ def device_profile(fn, iters=2):
     return dict(
         busy_ms=busy / iters / 1e3,
         attn_ms=sum(dev_us(e) for e in kernels
-                    if "decode_attention_kernel" in e.key) / iters / 1e3,
+                    if kernel in e.key) / iters / 1e3,
         launches=sum(e.count for e in kernels) // iters)
+
+
+def ptxas_report(text):
+    """(instance, line) for each register, shared-memory and spill line of
+    ``nvcc -Xptxas -v``'s report; the instance is the kernel's dtype."""
+    inst = "?"
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            inst = "bf16" if "nv_bfloat16" in line else "fp32"
+        elif "registers" in line or "spill" in line:
+            yield inst, line.split(" : ")[-1].strip()
 
 
 def main() -> int:
@@ -373,41 +617,57 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    log("phase 1: build")
+    log("phase 1: build, one nvcc per source at once")
     t0 = time.perf_counter()
-    build.load("decode_attention")
-    for name, text in build.build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    build.load_all(KERNELS)
+    for name in KERNELS:
+        for inst, line in ptxas_report(build.build_logs[name]):
+            log(f"  {name} ({inst}): {line}")
+    from repro_torch.kernels import decode_attention, flash_attention
+    da = decode_attention._lib().repro_decode_attention_smem_bytes
+    fa = flash_attention._lib().repro_flash_attention_smem_bytes
+    log(f"  dynamic shared memory per block: decode_attention "
+        f"{da(H // K, D, D)} B (g={H // K}, D={D}); flash_attention "
+        f"{fa(D, D)} B (D={D}), {fa(128, 128)} B (D=128), {fa(192, 128)} B "
+        f"(D=192, Dv=128)")
     log(f"  built in {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     log("phase 2: kernels against their plain versions")
     errs = phase_kernels(gen)
+    flash_errs = phase_flash(gen)
+    torch.cuda.empty_cache()
 
     cfg = configs.get_config("granite-3-2b")
     log("phase 3: full-width granite-3-2b serving with a row failure")
     model, launches, calls, _ = phase_serve(torch, cfg, gen)
     phase_small_against_cpu(torch, configs.get_smoke("granite-3-2b"))
 
-    log("phase 4: one full-width fp32 decode step, kernel against plain")
-    phase_step(torch, cfg, gen)
+    log("phase 4: full-width granite-3-2b prefill, then decode from it")
+    flash_launches = phase_prefill(torch, model)
     torch.cuda.empty_cache()
 
-    log("phase 5: times")
-    times, _ = phase_times(torch, model, gen)
+    log("phase 5: full-width fp32 decode step and prefill, kernel against "
+        "plain")
+    phase_fp32(torch, cfg, gen)
+    torch.cuda.empty_cache()
+
+    log("phase 6: times")
+    times = {"decode_attention": phase_times(torch, model, gen),
+             "flash_attention": phase_flash_times(torch, model, gen)}
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
+    path = {"decode_attention": (launches, errs[("path", "bfloat16")]),
+            "flash_attention": (flash_launches,
+                                flash_errs[("path", "bfloat16")])}
     log(json.dumps({"kernels": [dict(
-        name="decode_attention", route="cuda", source=SOURCE,
-        replaces=REPLACES,
-        launches=launches, max_abs_err=errs[("path", "bfloat16")],
-        **times)]}))
+        name=name, route="cuda", source=src, replaces=replaces,
+        launches=path[name][0], max_abs_err=path[name][1], **times[name])
+        for name, (src, replaces) in KERNELS.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,9 @@
 """Architecture registry of the port.
 
 ``get_config(name)`` returns the full published config; ``get_smoke(name)``
-the reduced same-family config the CPU tests use.  The port serves
-granite-3-2b so far; the other architectures of ``repro.configs`` follow
-with the model families they need.
+the reduced same-family config the CPU tests use.  The port holds the
+four dense architectures so far; the other architectures of
+``repro.configs`` follow with the model families they need.
 """
 from __future__ import annotations
 
@@ -13,6 +13,9 @@ from repro_torch.models.common import ModelConfig
 
 _MODULES = {
     "granite-3-2b": "granite_3_2b",
+    "deepseek-7b": "deepseek_7b",
+    "nemotron-4-15b": "nemotron_4_15b",
+    "qwen2.5-32b": "qwen2_5_32b",
 }
 
 ARCH_NAMES = list(_MODULES)

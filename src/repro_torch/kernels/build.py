@@ -13,8 +13,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
@@ -60,3 +61,12 @@ def load(name: str) -> ctypes.CDLL:
             os.replace(tmp, out)      # atomic: a reader never sees half a file
         lib = _loaded[name] = ctypes.CDLL(str(out))
     return lib
+
+
+def load_all(names: Iterable[str]) -> None:
+    """``load`` each named library, with one ``nvcc`` per source running
+    at the same time (each waits in its own thread); raises as ``load``
+    does if any build fails."""
+    names = list(names)
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(load, names))

@@ -6,5 +6,6 @@ is no global backend switch, so a CUDA tensor never reaches the plain
 version.
 """
 from .decode_attention import decode_attention
+from .flash_attention import flash_attention as mha
 
-__all__ = ["decode_attention"]
+__all__ = ["decode_attention", "mha"]

@@ -1,5 +1,6 @@
-"""Shared building blocks: norms, rope, embeddings, GQA decode attention,
-MLPs.  The counterparts of ``repro.models.layers``, for the decode path.
+"""Shared building blocks: norms, rope, embeddings, GQA attention (full
+sequence and decode), MLPs.  The counterparts of ``repro.models.layers``
+for the dense family.
 
 Each block's parameters are a mapping of name -> tensor with the JAX
 package's shapes, so weights bridge across unchanged; the ``*_param_spec``
@@ -89,7 +90,7 @@ def unembed(params: Params, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
-# GQA attention block (decode)
+# GQA attention block
 # ---------------------------------------------------------------------------
 
 def attention_param_spec(cfg: ModelConfig) -> ParamSpec:
@@ -119,6 +120,41 @@ def _qkv(p: Params, cfg: ModelConfig, x: torch.Tensor):
         k = k + p["bk"].to(cd)
         v = v + p["bv"].to(cd)
     return q, k, v
+
+
+def _attention_seq(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                   causal: bool, window: int):
+    """The block over a whole sequence x (B, S, d): returns its output and
+    the rotated keys and values (B, S, K, Dh).  The reference's
+    ``shard_attn_q`` is a sharding constraint, the identity on one card,
+    so it has no counterpart here."""
+    B, S, _ = x.shape
+    h = rmsnorm(p["ln"], x, cfg.norm_eps)
+    q, k, v = _qkv(p, cfg, h)
+    pos = torch.arange(S, device=x.device)[None].expand(B, S)
+    q = rope(q, pos, cfg.rope_theta)
+    k = rope(k, pos, cfg.rope_theta)
+    o = ops.mha(q, k, v, causal=causal, window=window,
+                q_chunk=cfg.attn_chunk, unroll=cfg.unroll_inner)
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(cfg.compute_dtype))
+    return x + out, k, v
+
+
+def attention_train(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                    window: int = 0,
+                    causal: Optional[bool] = None) -> torch.Tensor:
+    """x: (B, S, d).  Causal unless the config or ``causal`` says not."""
+    causal = cfg.is_causal if causal is None else causal
+    return _attention_seq(p, cfg, x, causal, window)[0]
+
+
+def attention_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                      window: int = 0
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, S, d), causal.  Returns the block's output and the cache
+    ``{"k", "v"}`` of shape (B, S, K, Dh) in the compute dtype."""
+    x, k, v = _attention_seq(p, cfg, x, True, window)
+    return x, {"k": k, "v": v}
 
 
 def attention_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,

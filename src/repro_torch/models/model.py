@@ -1,4 +1,5 @@
-"""The dense ``Model`` of the port: init, cache and the decode step.
+"""The dense ``Model`` of the port: init, the full-sequence forward, the
+batched prompt prefill, the decode step and its cache.
 
 The counterpart of ``repro.models.model.Model`` for the dense family
 (GQA attention + MLP blocks).  Layers run as a Python loop over
@@ -67,6 +68,46 @@ class Model(nn.Module):
                 pd[name].copy_(init_fn(generator, shape, self.cfg.param_dtype,
                                        device=self.device, **kw))
         return self
+
+    # -- full sequence ------------------------------------------------------
+
+    def _embed_inputs(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The token embedding of ``batch["tokens"]`` (B, S).  The audio and
+        vision frontends are not ported."""
+        if self.cfg.frontend != "none":
+            raise NotImplementedError(
+                f"{self.cfg.name}: the {self.cfg.frontend} frontend")
+        return layers.embed(self.embed, self.cfg, batch["tokens"])
+
+    @torch.no_grad()
+    def forward_train(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Logits (B, S, V) in fp32 at every position of ``batch["tokens"]``
+        (forward only: there is no backward kernel yet)."""
+        cfg = self.cfg
+        x = self._embed_inputs(batch)
+        for blk in self.layers:
+            x = layers.attention_train(blk.mixer, cfg, x, window=0)
+            x = layers.mlp_block(blk.mlp, cfg, x)
+        return layers.unembed(self.embed, cfg, x)
+
+    @torch.no_grad()
+    def prefill(self, batch: Dict[str, torch.Tensor]):
+        """Run the prompts ``batch["tokens"]`` (B, S) through every layer at
+        once.  Returns (logits (B, V) fp32 at the last position, cache
+        ``{"k", "v"}: (layers, B, S, K, Dh)``), the reference's layout, so
+        ``kv_cache.write_slot`` can place any row into a serving slot."""
+        cfg = self.cfg
+        x = self._embed_inputs(batch)
+        # filled layer by layer, so the layers' caches are never stacked
+        cache = {n: torch.empty(s.shape, dtype=s.dtype, device=self.device)
+                 for n, s in self.cache_spec(*x.shape[:2]).items()}
+        for i, blk in enumerate(self.layers):
+            x, lc = layers.attention_prefill(blk.mixer, cfg, x)
+            x = layers.mlp_block(blk.mlp, cfg, x)
+            for n, t in lc.items():
+                cache[n][i] = t
+        logits = layers.unembed(self.embed, cfg, x[:, -1:])[:, 0]
+        return logits, cache
 
     # -- decode ---------------------------------------------------------------
 

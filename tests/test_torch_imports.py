@@ -34,7 +34,7 @@ def test_imports_neither_jax_nor_repro(path):
 def test_the_file_list_covers_the_package():
     names = {p.name for p in FILES}
     assert {"engine.py", "model.py", "decode_attention.py",
-            "chip_smoke.py"} <= names
+            "flash_attention.py", "chip_smoke.py"} <= names
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
