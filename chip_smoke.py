@@ -26,7 +26,18 @@ Phases (any failure exits non-zero and prints no result):
                 decode (its fp32 weights are freed before the times);
   6. times    — each kernel, its plain version and one PyTorch library call
                 on the same inputs, beside the card's least time for the
-                work; ``decode_step`` and ``prefill`` times and profiles.
+                work; ``decode_step`` and ``prefill`` times and profiles;
+  7. mamba2 serve   — full-width mamba2-780m (random bf16 weights from the
+                seed) through the same serving drive and row failure: a
+                slot's payload is its SSM state and conv history; a small
+                fp32 drive must give the CPU's tokens;
+  8. mamba2 prefill — 4 prompts of 2,048 tokens in one batch (every layer's
+                SSD scan through the scan kernel), each row's state and
+                conv history placed in a serving slot, 16 greedy tokens;
+  9. mamba2 fp32    — a full-width fp32 256-token prefill, kernel against
+                plain, and prefill against decode;
+ 10. mamba2 times   — the scan kernel, its plain version and its bound;
+                ``prefill`` and ``decode_step`` times and profiles.
 
 The lines before the last carry the card's name and power limit
 (``nvidia-smi``) and one JSON object ``{"kernels": [...]}``; the last line
@@ -68,6 +79,8 @@ KERNELS = {
                          "src/repro/kernels/decode_attention.py:68"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:80"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:65"),
 }
 
 
@@ -236,8 +249,27 @@ def serve(model, prompts, fail):
     return eng, outs
 
 
-def phase_serve(torch, cfg, gen):
+def wrappers():
+    """Every kernel wrapper of the port, by kernel name."""
     from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return {"decode_attention": decode_attention,
+            "flash_attention": flash_attention, "ssd_scan": ssd_scan}
+
+
+def zero_counts():
+    for w in wrappers().values():
+        w.launches = 0
+
+
+def counts():
+    return {name: w.launches for name, w in wrappers().items()}
+
+
+def phase_serve(torch, cfg, gen, per_layer=()):
+    """The chaos drive at full width; every decode step must launch each
+    kernel named in ``per_layer`` once per layer, and no other kernel."""
     from repro_torch.models import Model
     rng = np.random.default_rng(SEED)
     prompts = [[rng.integers(0, cfg.vocab_size, PROMPT).tolist()
@@ -250,24 +282,25 @@ def phase_serve(torch, cfg, gen):
         f"{time.perf_counter() - t0:.1f} s")
     counted = CountedModel(model)
     healthy, want = serve(model, prompts, fail=False)
-    # the drive the launch count is read from: counts set to 0 just before
-    decode_attention.launches = 0
+    # the drive the launch counts are read from: counts set to 0 just before
+    zero_counts()
     counted.calls = 0
     t0 = time.perf_counter()
     eng, got = serve(model, prompts, fail=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, calls = decode_attention.launches, counted.calls
+    launches, calls = counts(), counted.calls
     s = eng.summary()
     log(f"  calibrated svc {eng._svc}")
-    log(f"  chaos drive: {calls} decode steps, {launches} decode_attention "
-        f"launches ({launches / calls:g} per step), {wall:.2f} s wall "
-        f"({calls / wall:.1f} steps/s); summary {s}")
+    log(f"  chaos drive: {calls} decode steps, launches {launches}, "
+        f"{wall:.2f} s wall ({calls / wall:.1f} steps/s); summary {s}")
     check(all(len(o) == GEN for outs in got.values() for o in outs),
           "a turn returned no tokens")
     check(int(counted.bad) == 0, "non-finite logits")
-    check(launches == cfg.n_layers * calls,
-          f"{launches} launches != {cfg.n_layers} x {calls} decode steps")
+    want_launches = {n: (cfg.n_layers * calls if n in per_layer else 0)
+                     for n in launches}
+    check(launches == want_launches,
+          f"launches {launches} != {want_launches} in {calls} decode steps")
     check(s["recoveries_ckpt"] > 0 and s["sessions_displaced"] > 0,
           "no session recovered from a checkpoint")
     check(s["shed_turns"] == 0 and s["dup_effects"] == 0
@@ -315,39 +348,39 @@ def prompts(torch, cfg, seed, b, s):
     return torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).cuda()
 
 
-def phase_prefill(torch, model):
+def phase_prefill(torch, model, per_layer):
     """Prefill PB prompts of PS tokens, place each row's cache in a slot of
-    a row cache and decode PGEN greedy tokens there."""
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
+    a row cache and decode PGEN greedy tokens there.  The prefill must
+    launch the kernel ``per_layer[0]`` once per layer, and each decode
+    step ``per_layer[1]`` (if any) once per layer, and nothing else."""
     from repro_torch.serving import kv_cache
     cfg = model.cfg
     toks = prompts(torch, cfg, SEED, PB, PS)
     # the drive the launch counts are read from: counts set to 0 just before
-    flash_attention.launches = decode_attention.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     logits, cache = model.prefill({"tokens": toks})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    flash, dec = flash_attention.launches, decode_attention.launches
-    log(f"  prefill {PB} x {PS} tokens: {flash} flash_attention launches, "
-        f"{dec} decode_attention, {wall:.2f} s wall (first call)")
-    check(flash == cfg.n_layers and dec == 0,
-          f"{flash} flash launches (and {dec} decode) in one prefill, not "
-          f"{cfg.n_layers}")
+    launches = counts()
+    log(f"  prefill {PB} x {PS} tokens: launches {launches}, {wall:.2f} s "
+        f"wall (first call)")
+    want = {n: cfg.n_layers if n == per_layer[0] else 0 for n in launches}
+    check(launches == want, f"launches {launches} in one prefill, not {want}")
     check(tuple(logits.shape) == (PB, cfg.vocab_size), "prefill logits shape")
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
-    K, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
-    check(all(tuple(t.shape) == (cfg.n_layers, PB, PS, K, Dh)
-              and t.dtype == cfg.compute_dtype for t in cache.values()),
-          "prefill cache layout")
+    spec = model.cache_spec(PB, PS)
+    check(set(cache) == set(spec) and all(
+        tuple(cache[n].shape) == s.shape and cache[n].dtype == s.dtype
+        for n, s in spec.items()), "prefill cache layout")
 
     row = model.init_cache(ROW_SLOTS, ROW_SMAX)
     slots = [1, 2, 5, 7]
     for b, slot in enumerate(slots):
         kv_cache.write_slot(row, {n: t[:, b:b + 1] for n, t in cache.items()},
                             slot)
-    check(all(torch.equal(row[n][:, slot, :PS], cache[n][:, b])
+    check(all(torch.equal(row[n][(slice(None), slot) + tuple(
+        slice(0, d) for d in cache[n].shape[2:])], cache[n][:, b])
               for n in row for b, slot in enumerate(slots)),
           "write_slot did not place the prefill cache")
     del cache
@@ -358,7 +391,7 @@ def phase_prefill(torch, model):
     lengths = torch.where(live, PS, 0).to(torch.int32)
     bad = torch.zeros((), dtype=torch.int64, device="cuda")
     out = []
-    flash_attention.launches = decode_attention.launches = 0
+    zero_counts()
     for _ in range(PGEN):
         step_logits, _ = model.decode_step(tokens, lengths, row, commit=live)
         bad += (~torch.isfinite(step_logits[live])).sum()
@@ -366,15 +399,14 @@ def phase_prefill(torch, model):
         lengths += live.to(torch.int32)
         out.append(tokens[slots])
     torch.cuda.synchronize()
-    flash_d, dec = flash_attention.launches, decode_attention.launches
-    log(f"  {PGEN} greedy decode steps from the placed caches: {dec} "
-        f"decode_attention launches, {flash_d} flash; first tokens "
-        f"{torch.stack(out, 1)[:, :4].tolist()}")
-    check(dec == cfg.n_layers * PGEN and flash_d == 0,
-          f"{dec} decode launches in {PGEN} steps")
+    dec = counts()
+    log(f"  {PGEN} greedy decode steps from the placed caches: launches "
+        f"{dec}; first tokens {torch.stack(out, 1)[:, :4].tolist()}")
+    want = {n: cfg.n_layers * PGEN if n in per_layer[1:] else 0 for n in dec}
+    check(dec == want, f"launches {dec} in {PGEN} decode steps, not {want}")
     check(int(bad) == 0, "non-finite logits decoding after prefill")
     del row
-    return flash
+    return launches[per_layer[0]]
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -554,6 +586,187 @@ def phase_flash_times(torch, model, gen):
                 bound_ms=bound_ms, bound_by=by)
 
 
+# -- phase 2: the SSD scan ----------------------------------------------------
+
+# the scan kernel's cases: the mamba2-780m prefill path's shape (4 x 2048
+# tokens, H=48, P=64, G=1, N=128, chunk 256) and its variants; every case
+# runs in fp32 and in bf16
+SSD = dict(B=4, S=2048, H=48, P=64, G=1, N=128, chunk=256)
+SSD_CASES = [
+    ("path", {}),
+    ("ragged", dict(S=1000)),               # a last chunk of 232 steps
+    ("one_chunk", dict(S=200)),             # S < chunk: L = S
+    ("groups_8", dict(G=8)),                # 6 heads per group
+    ("no_d", dict(D=False)),
+    ("chunk_64", dict(chunk=64)),
+    ("p128_n64", dict(H=24, P=128, N=64)),
+]
+# kernel against plain, held to each output's largest magnitude: fp32
+# sums in another order (the scan's cumsum, the products' tiles); bf16 y
+# rounds to 8 bits of mantissa, the fp32 state is held as in fp32
+SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def ssd_inputs(gen, dtype, B, S, H, P, G, N, chunk, D=True):
+    """x, dt (softplus of a normal), A (< 0), Bm, Cm, D as the model
+    makes them; x, Bm, Cm in ``dtype``, the rest fp32."""
+    import torch
+    x = torch.randn((B, S, H, P), generator=gen, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device="cuda"))
+    A = -torch.exp(0.5 * torch.randn((H,), generator=gen, device="cuda"))
+    Bm = torch.randn((B, S, G, N), generator=gen, device="cuda").to(dtype)
+    Cm = torch.randn((B, S, G, N), generator=gen, device="cuda").to(dtype)
+    Dv = torch.randn((H,), generator=gen, device="cuda") if D else None
+    return (x, dt, A, Bm, Cm, Dv), chunk
+
+
+def rel_err(got, want):
+    """max |got - want| over want's largest magnitude."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def phase_ssd(gen):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    errs = {}
+    for name, over in SSD_CASES:
+        for dt in ("float32", "bfloat16"):
+            args, chunk = ssd_inputs(gen, getattr(torch, dt),
+                                     **{**SSD, **over})
+            y, st = ssd_scan(*args, chunk=chunk)
+            y_want, st_want = ref.ssd(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            ey, es = rel_err(y, y_want), rel_err(st, st_want)
+            errs[(name, dt)] = (y.float() - y_want.float()).abs().max().item()
+            log(f"  ssd_scan         {name:13s} {dt:9s} max|err| y "
+                f"{errs[(name, dt)]:.3e} ({ey:.2e} of max), state "
+                f"{(st - st_want).abs().max().item():.3e} ({es:.2e} of max) "
+                f"(tol {SSD_TOL[dt]} of max)")
+            check(y.dtype == args[0].dtype and st.dtype == torch.float32,
+                  f"ssd_scan output dtypes: {name} {dt}")
+            check(ey <= SSD_TOL[dt] and es <= SSD_TOL[dt],
+                  f"kernel != plain: ssd {name} {dt}")
+            del y, st, y_want, st_want, args
+    return errs
+
+
+# -- phases 7-10: mamba2 -----------------------------------------------------
+
+# full-width fp32 through 48 layers: the kernel's summation-order
+# differences (~1e-6 of each layer's largest output) carry through the
+# residual stream, so the model is held 10x looser than the kernel alone
+SSM_TOL = 1e-3
+
+
+def phase_ssm_fp32(torch, cfg, gen):
+    """Full-width fp32: a prefill, kernel against plain, and prefill
+    against decode."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import Model, ssd
+    from repro_torch.serving import kv_cache
+    f32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    model = Model(f32).init(gen)
+    toks = prompts(torch, cfg, SEED + 1, 1, FP32_PROMPT)
+    got, got_cache = model.prefill({"tokens": toks})
+    with mock.patch.object(ssd.ops, "ssd", ref.ssd):
+        want, want_cache = model.prefill({"tokens": toks})
+    errs = {"logits": rel_err(got, want)}
+    errs.update({n: rel_err(got_cache[n], want_cache[n]) for n in got_cache})
+    log(f"  fp32 prefill of {FP32_PROMPT} tokens, kernel vs plain: max|err| "
+        "of each tensor's largest magnitude "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f" (tol {SSM_TOL}); |logits| max {want.abs().max().item():.3f}")
+    check(max(errs.values()) <= SSM_TOL, "full-width prefill: kernel != plain")
+    check(bool(torch.equal(got.argmax(-1), want.argmax(-1))),
+          "full-width prefill: greedy tokens differ")
+    del want_cache, got_cache
+
+    # the last token through decode_step over the prefill of the others
+    _, head = model.prefill({"tokens": toks[:, :-1]})
+    row = model.init_cache(1, FP32_PROMPT)
+    kv_cache.write_slot(row, head, 0)
+    dec, _ = model.decode_step(toks[:, -1], torch.full(
+        (1,), FP32_PROMPT - 1, dtype=torch.int32, device="cuda"), row)
+    err = rel_err(dec, got)
+    log(f"  fp32 prefill({FP32_PROMPT - 1}) + decode_step vs prefill("
+        f"{FP32_PROMPT}), last position: max|err| {err:.3e} of the largest "
+        f"logit (tol {SSM_TOL})")
+    check(err <= SSM_TOL, "prefill then decode != prefill")
+    check(bool(torch.equal(dec.argmax(-1), got.argmax(-1))),
+          "prefill then decode: greedy token differs")
+    return err
+
+
+def ssd_work(B, S, H, P, G, N, chunk, x_bytes):
+    """Bytes the scan must move (each input read once, each output written
+    once) and the flops its products need: C.B^T once per group over the
+    causal pairs of each chunk, the weights applied to x, the C.h^T term
+    and the state update per head, and the D skip."""
+    L = min(chunk, S)
+    sizes = [L] * (S // L) + ([S % L] if S % L else [])
+    pairs = sum(n * (n + 1) // 2 for n in sizes)
+    nbytes = (2 * B * S * H * P * x_bytes + 2 * B * S * G * N * x_bytes
+              + B * S * H * 4 + 2 * H * 4 + B * H * P * N * 4)
+    flops = (B * G * pairs * N * 2 + B * H * pairs * P * 2
+             + 2 * B * H * S * N * P * 2 + B * H * S * P * 2)
+    return nbytes, flops
+
+
+def phase_ssd_times(torch, model, gen):
+    """ssd_scan at the prefill path's shape (bf16), its plain version and
+    the bound; then one full-width prefill and decode step."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    args, chunk = ssd_inputs(gen, torch.bfloat16, **SSD)
+    before = ssd_scan.launches
+    ms = event_ms(lambda i: ssd_scan(*args, chunk=chunk), 20)
+    plain_ms = event_ms(lambda i: ref.ssd(*args, chunk=chunk), 5)
+    ssd_scan.launches = before   # timing launches are not the path's
+    nbytes, flops = ssd_work(**{k: SSD[k] for k in "BSHPGN"}, chunk=chunk,
+                             x_bytes=2)
+    bound_ms, by = bound(nbytes, flops)
+    log(f"  ssd_scan bf16 B={SSD['B']} S={SSD['S']} H={SSD['H']} "
+        f"P={SSD['P']} G={SSD['G']} N={SSD['N']} chunk={chunk}: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, no single PyTorch call, "
+        f"bound {bound_ms:.4f} ms by {by} ({nbytes} B, {flops} flop); "
+        f"kernel at {flops / ms / 1e9:.1f} TFLOP/s")
+    del args
+
+    toks = prompts(torch, model.cfg, SEED, PB, PS)
+    pre_ms = host_ms(lambda: model.prefill({"tokens": toks}), 3)
+    busy = device_profile(lambda: model.prefill({"tokens": toks}),
+                          "ssd_scan_kernel", iters=1)
+    log(f"  mamba2 prefill bf16 full width, {PB} x {PS} tokens: "
+        f"{pre_ms:.3f} ms on the host clock, "
+        f"{PB * PS / pre_ms * 1e3:.0f} tokens/s")
+    log(f"  mamba2 prefill profile: device busy {busy['busy_ms']:.3f} ms "
+        f"({busy['busy_ms'] / pre_ms:.1%} of the call), {busy['launches']} "
+        f"device kernels, ssd_scan {busy['attn_ms']:.3f} ms "
+        f"({busy['attn_ms'] / busy['busy_ms']:.1%} of device time)")
+
+    cache = model.init_cache(B, SMAX)
+    tokens = torch.zeros(B, dtype=torch.long, device="cuda")
+    lens = torch.full((B,), SMAX // 2, dtype=torch.int32, device="cuda")
+    one = torch.zeros(B, dtype=torch.bool, device="cuda")
+    one[0] = True
+    step_ms = host_ms(lambda: model.decode_step(tokens, lens, cache,
+                                                commit=one), 20)
+    sbusy = device_profile(lambda: model.decode_step(tokens, lens, cache,
+                                                     commit=one),
+                           "ssd_scan_kernel")
+    ssd_scan.launches = before
+    log(f"  mamba2 decode_step bf16 full width, B={B}: {step_ms:.3f} ms on "
+        f"the host clock; device busy {sbusy['busy_ms']:.3f} ms "
+        f"({sbusy['busy_ms'] / step_ms:.1%} of the step), "
+        f"{sbusy['launches']} device kernels")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=by)
+
+
 def host_ms(fn, iters):
     """Host-clock time of ``fn()`` per call, ending in a synchronize."""
     import torch
@@ -621,30 +834,37 @@ def main() -> int:
     t0 = time.perf_counter()
     build.load_all(KERNELS)
     for name in KERNELS:
-        for inst, line in ptxas_report(build.build_logs[name]):
+        if name not in build.build_logs:   # a library this checkout built
+            log(f"  {name}: built before, no nvcc report")
+        for inst, line in ptxas_report(build.build_logs.get(name, "")):
             log(f"  {name} ({inst}): {line}")
-    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels import decode_attention, flash_attention, ssd_scan
     da = decode_attention._lib().repro_decode_attention_smem_bytes
     fa = flash_attention._lib().repro_flash_attention_smem_bytes
+    sa = ssd_scan._lib().repro_ssd_scan_smem_bytes
     log(f"  dynamic shared memory per block: decode_attention "
         f"{da(H // K, D, D)} B (g={H // K}, D={D}); flash_attention "
         f"{fa(D, D)} B (D={D}), {fa(128, 128)} B (D=128), {fa(192, 128)} B "
-        f"(D=192, Dv=128)")
+        f"(D=192, Dv=128); ssd_scan {sa(256, 64, 128)} B (L=256, P=64, "
+        f"N=128), {sa(256, 128, 64)} B (P=128, N=64)")
     log(f"  built in {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     log("phase 2: kernels against their plain versions")
     errs = phase_kernels(gen)
     flash_errs = phase_flash(gen)
+    ssd_errs = phase_ssd(gen)
     torch.cuda.empty_cache()
 
     cfg = configs.get_config("granite-3-2b")
     log("phase 3: full-width granite-3-2b serving with a row failure")
-    model, launches, calls, _ = phase_serve(torch, cfg, gen)
+    model, launches, calls, _ = phase_serve(torch, cfg, gen,
+                                            per_layer=("decode_attention",))
     phase_small_against_cpu(torch, configs.get_smoke("granite-3-2b"))
 
     log("phase 4: full-width granite-3-2b prefill, then decode from it")
-    flash_launches = phase_prefill(torch, model)
+    flash_launches = phase_prefill(torch, model,
+                                   ("flash_attention", "decode_attention"))
     torch.cuda.empty_cache()
 
     log("phase 5: full-width fp32 decode step and prefill, kernel against "
@@ -655,15 +875,35 @@ def main() -> int:
     log("phase 6: times")
     times = {"decode_attention": phase_times(torch, model, gen),
              "flash_attention": phase_flash_times(torch, model, gen)}
+    del model
+    torch.cuda.empty_cache()
+
+    mcfg = configs.get_config("mamba2-780m")
+    log("phase 7: full-width mamba2-780m serving with a row failure")
+    mmodel, _, _, _ = phase_serve(torch, mcfg, gen)
+    phase_small_against_cpu(torch, configs.get_smoke("mamba2-780m"))
+
+    log("phase 8: full-width mamba2-780m prefill, then decode from it")
+    ssd_launches = phase_prefill(torch, mmodel, ("ssd_scan",))
+    torch.cuda.empty_cache()
+
+    log("phase 9: full-width fp32 mamba2 prefill, kernel against plain")
+    phase_ssm_fp32(torch, mcfg, gen)
+    torch.cuda.empty_cache()
+
+    log("phase 10: mamba2 times")
+    times["ssd_scan"] = phase_ssd_times(torch, mmodel, gen)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
-    path = {"decode_attention": (launches, errs[("path", "bfloat16")]),
+    path = {"decode_attention": (launches["decode_attention"],
+                                 errs[("path", "bfloat16")]),
             "flash_attention": (flash_launches,
-                                flash_errs[("path", "bfloat16")])}
+                                flash_errs[("path", "bfloat16")]),
+            "ssd_scan": (ssd_launches, ssd_errs[("path", "bfloat16")])}
     log(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=replaces,
         launches=path[name][0], max_abs_err=path[name][1], **times[name])

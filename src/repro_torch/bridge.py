@@ -3,9 +3,10 @@ through numpy.
 
 ``params_into`` takes ``Model.init``'s params as a tree of numpy arrays
 (``{"embed": {...}, "layers": {"mixer": {...}, "mlp": {...}}}`` with a
-leading layer axis on every leaf under ``layers``) and copies them into a
-port ``Model``.  ``cache_to_torch`` and ``cache_to_numpy`` convert the
-slotted decode cache.  bf16 arrays arrive as ``ml_dtypes.bfloat16``,
+leading layer axis on every leaf under ``layers``; an SSM layer has a
+mixer and no MLP) and copies them into a port ``Model``.
+``cache_to_torch`` and ``cache_to_numpy`` convert the slotted decode
+cache.  bf16 arrays arrive as ``ml_dtypes.bfloat16``,
 which ``torch.from_numpy`` refuses, so they cross as a ``uint16`` view.
 """
 from __future__ import annotations
@@ -56,8 +57,11 @@ def params_into(model: Model, params: Mapping[str, Any]) -> Model:
     _copy(model.embed, params["embed"])
     stacked = params["layers"]
     for i, blk in enumerate(model.layers):
-        _copy(blk.mixer, stacked["mixer"], i)
-        _copy(blk.mlp, stacked["mlp"], i)
+        if set(blk.specs) != set(stacked):
+            raise KeyError(f"layer subtrees differ: {sorted(blk.specs)} vs "
+                           f"{sorted(stacked)}")
+        for name in blk.specs:
+            _copy(getattr(blk, name), stacked[name], i)
     return model
 
 

@@ -2,8 +2,9 @@
 
 ``get_config(name)`` returns the full published config; ``get_smoke(name)``
 the reduced same-family config the CPU tests use.  The port holds the
-four dense architectures so far; the other architectures of
-``repro.configs`` follow with the model families they need.
+four dense architectures and mamba2 (the SSM family) so far; the other
+architectures of ``repro.configs`` follow with the model families they
+need.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ _MODULES = {
     "deepseek-7b": "deepseek_7b",
     "nemotron-4-15b": "nemotron_4_15b",
     "qwen2.5-32b": "qwen2_5_32b",
+    "mamba2-780m": "mamba2_780m",
 }
 
 ARCH_NAMES = list(_MODULES)

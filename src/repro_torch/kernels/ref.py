@@ -6,13 +6,14 @@ them for tensors that lie on the CPU; on the card they serve only as the
 yardstick the kernels are held against.
 
 Shape conventions: B batch, S query seq, T key seq, H query heads, K kv
-heads, D head dim.
+heads, D head dim; for the SSD scan P head dim, G groups, N state dim.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -120,3 +121,109 @@ def decode_attention(
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", probs, v_cache.float())
     return out.reshape(B, H, v_cache.shape[-1]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality) — chunked algorithm
+# ---------------------------------------------------------------------------
+
+def ssd(
+    x: torch.Tensor,           # (B, S, H, P)
+    dt: torch.Tensor,          # (B, S, H)  — already softplus'd, > 0
+    A: torch.Tensor,           # (H,)       — negative
+    Bm: torch.Tensor,          # (B, S, G, N)
+    Cm: torch.Tensor,          # (B, S, G, N)
+    D: Optional[torch.Tensor] = None,   # (H,) skip connection
+    *,
+    chunk: int = 256,
+    init_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+    unroll: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y (B,S,H,P) in x's dtype, final_state (B,H,P,N) fp32).
+
+    Chunks of L = min(chunk, S) steps, in fp32; head h reads group
+    h // (H/G).  A ragged S is padded with dt=0 steps, which are exact
+    no-ops (decay exp(0) = 1, zero input)."""
+    del unroll   # in the reference it only shapes JAX's HLO
+    Bsz, S_in, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if H % G:
+        raise ValueError(f"{H} heads do not group over {G} groups")
+    hpg = H // G
+    L = min(chunk, S_in)
+    if S_in % L:
+        pad = L - S_in % L
+
+        def z(a):
+            return F.pad(a, (0, 0) * (a.ndim - 2) + (0, pad))
+        x, dt, Bm, Cm = z(x), z(dt), z(Bm), z(Cm)
+    S = x.shape[1]
+    nc = S // L
+
+    xf = x.float()
+    dtf = dt.float()
+    Af = A.float()
+    # expand groups to heads once
+    Bh = Bm.float()
+    Ch = Cm.float()
+    if G != H:
+        Bh = Bh.repeat_interleave(hpg, dim=2)
+        Ch = Ch.repeat_interleave(hpg, dim=2)
+
+    xc = xf.reshape(Bsz, nc, L, H, P)
+    dtc = dtf.reshape(Bsz, nc, L, H)
+    Bc = Bh.reshape(Bsz, nc, L, H, N)
+    Cc = Ch.reshape(Bsz, nc, L, H, N)
+
+    tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+         if init_state is None else init_state.float())
+    ys = []
+    for c in range(nc):
+        xi, dti, Bi, Ci = xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c]
+        dA = dti * Af[None, None, :]                        # (B,L,H) <= 0
+        cum = torch.cumsum(dA, dim=1)                       # inclusive
+        # intra-chunk: decay(i,j) = exp(cum_i - cum_j), j <= i
+        decay = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])
+        decay = torch.where(tri[None, :, :, None], decay, 0.0)
+        cb = torch.einsum("bihn,bjhn->bijh", Ci, Bi)        # (B,i,j,H)
+        w = cb * decay * dti[:, None, :, :]
+        y_intra = torch.einsum("bijh,bjhp->bihp", w, xi)
+        # inter-chunk contribution: C_i . exp(cum_i) h_prev
+        y_inter = torch.einsum("bihn,bih,bhpn->bihp", Ci, torch.exp(cum), h)
+        # chunk-final state update
+        last = cum[:, -1:, :]                               # (B,1,H)
+        sdecay = torch.exp(last - cum) * dti                # (B,L,H)
+        states = torch.einsum("blh,blhn,blhp->bhpn", sdecay, Bi, xi)
+        h = h * torch.exp(last[:, 0])[:, :, None, None] + states
+        ys.append(y_intra + y_inter)
+
+    y = torch.stack(ys, dim=1).reshape(Bsz, S, H, P)
+    if D is not None:
+        y = y + xf * D.float()[None, None, :, None]
+    return y[:, :S_in].to(x.dtype), h
+
+
+def ssd_decode(
+    x: torch.Tensor,           # (B, H, P)
+    dt: torch.Tensor,          # (B, H)
+    A: torch.Tensor,           # (H,)
+    Bm: torch.Tensor,          # (B, G, N)
+    Cm: torch.Tensor,          # (B, G, N)
+    D: Optional[torch.Tensor],
+    state: torch.Tensor,       # (B, H, P, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One recurrent SSD step. Returns (y (B,H,P), new_state fp32)."""
+    B, H, P = x.shape
+    G = Bm.shape[1]
+    hpg = H // G
+    xf, dtf = x.float(), dt.float()
+    Bh = Bm.repeat_interleave(hpg, dim=1).float()           # (B,H,N)
+    Ch = Cm.repeat_interleave(hpg, dim=1).float()
+    dA = torch.exp(dtf * A.float()[None])                   # (B,H)
+    upd = torch.einsum("bh,bhn,bhp->bhpn", dtf, Bh, xf)
+    new_state = state.float() * dA[:, :, None, None] + upd
+    y = torch.einsum("bhn,bhpn->bhp", Ch, new_state)
+    if D is not None:
+        y = y + xf * D.float()[None, :, None]
+    return y.to(x.dtype), new_state

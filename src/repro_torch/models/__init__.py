@@ -1,4 +1,4 @@
-"""The port's model zoo: the dense family so far."""
+"""The port's model zoo: the dense and SSM (mamba2) families so far."""
 from .common import ModelConfig, resolve_device
 from .model import Model
 
