@@ -37,11 +37,27 @@ Phases (any failure exits non-zero and prints no result):
   9. mamba2 fp32    — a full-width fp32 256-token prefill, kernel against
                 plain, and prefill against decode;
  10. mamba2 times   — the scan kernel, its plain version and its bound;
-                ``prefill`` and ``decode_step`` times and profiles.
+                ``prefill`` and ``decode_step`` times and profiles;
+ 11. recurrentgemma prefill — full-width recurrentgemma-9b (random bf16
+                weights from the seed): 4 prompts of 2,048 tokens in one
+                batch (26 RG-LRU scans through the scan kernel, 12 local
+                attention layers through the flash kernel at head dim 256),
+                each row's caches placed in a slot of an 8-slot cache
+                (``place_row``), 16 greedy tokens through the decode kernel
+                on the 2,048-entry rings;
+ 12. recurrentgemma fp32  — a full-width fp32 256-token prefill, kernels
+                against plain, and prefill(255) + decode against
+                prefill(256);
+ 13. recurrentgemma times — the RG-LRU scan kernel, its plain version and
+                its bound; the flash kernel at head dim 256 and the decode
+                kernel on full 2,048-entry rings, each beside its plain
+                version, its bound and SDPA; ``prefill`` and
+                ``decode_step`` times and profiles.
 
 The lines before the last carry the card's name and power limit
-(``nvidia-smi``) and one JSON object ``{"kernels": [...]}``; the last line
-is ``{"ok": true, "device": {...}}``.
+(``nvidia-smi``) and one JSON object ``{"kernels": [...]}`` with an entry
+for each kernel on each path that runs it (its ``path`` names the model);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -81,6 +97,8 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:80"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:65"),
+    "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
+                   "src/repro/kernels/rglru_scan.py:51"),
 }
 
 
@@ -132,14 +150,20 @@ def phase_kernels(gen):
              ("window", dict(h=H, k=K, d=D, smax=SMAX, window=128)),
              ("softcap", dict(h=H, k=K, d=D, smax=SMAX, softcap=50.0)),
              ("ragged_smax", dict(h=H, k=K, d=D, smax=500)),
-             ("mqa", dict(h=H, k=1, d=D, smax=SMAX))]
+             ("mqa", dict(h=H, k=1, d=D, smax=SMAX)),
+             # recurrentgemma's local attention: g = 16, D = 256 over a
+             # 2,048-entry ring, every length a valid one (<= the ring)
+             ("rg_ring", dict(h=16, k=1, d=256, smax=2048, ring=True))]
     errs = {}
     for name, c in cases:
         c = dict(c)
         kw = dict(window=c.pop("window", 0), softcap=c.pop("softcap", 0.0))
+        ring = c.pop("ring", False)
         for dt in ("float32", "bfloat16"):
             q, kc, vc, lengths = attention_inputs(
                 gen, B, dtype=getattr(torch, dt), **c)
+            if ring:
+                lengths.clamp_(max=c["smax"])
             got = decode_attention(q, kc[0], vc[0], lengths, **kw)
             want = ref.decode_attention(q, kc[0], vc[0], lengths, **kw)
             torch.cuda.synchronize()
@@ -171,6 +195,10 @@ FLASH_CASES = [
     # q, k and v as head slices of one fused (B, S, H + 2K, D) tensor: the
     # kernel reads them through their strides
     ("fused_qkv", dict(fused=True)),
+    # recurrentgemma-9b's prefill: MQA at head dim 256 (a 32-query tile),
+    # causal, and with its 2,048-key window
+    ("rg_path", dict(H=16, K=1, D=256)),
+    ("rg_window", dict(H=16, K=1, D=256, window=2048)),
 ]
 
 
@@ -253,9 +281,11 @@ def wrappers():
     """Every kernel wrapper of the port, by kernel name."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.ssd_scan import ssd_scan
     return {"decode_attention": decode_attention,
-            "flash_attention": flash_attention, "ssd_scan": ssd_scan}
+            "flash_attention": flash_attention, "ssd_scan": ssd_scan,
+            "rglru_scan": rglru_scan}
 
 
 def zero_counts():
@@ -348,11 +378,15 @@ def prompts(torch, cfg, seed, b, s):
     return torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).cuda()
 
 
-def phase_prefill(torch, model, per_layer):
+def phase_prefill(torch, model, prefill_launches, step_launches):
     """Prefill PB prompts of PS tokens, place each row's cache in a slot of
     a row cache and decode PGEN greedy tokens there.  The prefill must
-    launch the kernel ``per_layer[0]`` once per layer, and each decode
-    step ``per_layer[1]`` (if any) once per layer, and nothing else."""
+    launch each kernel as often as ``prefill_launches`` says, and each
+    decode step as often as ``step_launches`` says, and nothing else;
+    returns the launches of the prefill and of the decode steps.
+    A flat cache is placed by the engine's ``kv_cache.write_slot``, the
+    hybrid's group and tail caches by ``place_row``."""
+    from repro_torch.models.model import place_row, slot_axis
     from repro_torch.serving import kv_cache
     cfg = model.cfg
     toks = prompts(torch, cfg, SEED, PB, PS)
@@ -365,7 +399,7 @@ def phase_prefill(torch, model, per_layer):
     launches = counts()
     log(f"  prefill {PB} x {PS} tokens: launches {launches}, {wall:.2f} s "
         f"wall (first call)")
-    want = {n: cfg.n_layers if n == per_layer[0] else 0 for n in launches}
+    want = {n: prefill_launches.get(n, 0) for n in launches}
     check(launches == want, f"launches {launches} in one prefill, not {want}")
     check(tuple(logits.shape) == (PB, cfg.vocab_size), "prefill logits shape")
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
@@ -377,12 +411,19 @@ def phase_prefill(torch, model, per_layer):
     row = model.init_cache(ROW_SLOTS, ROW_SMAX)
     slots = [1, 2, 5, 7]
     for b, slot in enumerate(slots):
-        kv_cache.write_slot(row, {n: t[:, b:b + 1] for n, t in cache.items()},
-                            slot)
-    check(all(torch.equal(row[n][(slice(None), slot) + tuple(
-        slice(0, d) for d in cache[n].shape[2:])], cache[n][:, b])
-              for n in row for b, slot in enumerate(slots)),
-          "write_slot did not place the prefill cache")
+        if model.hybrid:
+            place_row(row, cache, b, slot)
+        else:
+            kv_cache.write_slot(
+                row, {n: t[:, b:b + 1] for n, t in cache.items()}, slot)
+
+    def placed(n, b, slot):
+        ax = slot_axis(n)
+        src = cache[n].select(ax, b)
+        dst = row[n].select(ax, slot)
+        return torch.equal(dst[tuple(slice(0, d) for d in src.shape)], src)
+    check(all(placed(n, b, slot) for n in row for b, slot in
+              enumerate(slots)), "the prefill cache was not placed")
     del cache
     live = torch.zeros(ROW_SLOTS, dtype=torch.bool, device="cuda")
     live[slots] = True
@@ -402,11 +443,11 @@ def phase_prefill(torch, model, per_layer):
     dec = counts()
     log(f"  {PGEN} greedy decode steps from the placed caches: launches "
         f"{dec}; first tokens {torch.stack(out, 1)[:, :4].tolist()}")
-    want = {n: cfg.n_layers * PGEN if n in per_layer[1:] else 0 for n in dec}
+    want = {n: step_launches.get(n, 0) * PGEN for n in dec}
     check(dec == want, f"launches {dec} in {PGEN} decode steps, not {want}")
     check(int(bad) == 0, "non-finite logits decoding after prefill")
     del row
-    return launches[per_layer[0]]
+    return launches, dec
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -479,14 +520,18 @@ def bound(nbytes, flops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_times(torch, model, gen):
-    """decode_attention at the path's shapes, cold in L2 as on the path:
-    the calls walk the 40 layers' caches (~336 MB per tensor at bf16)."""
+def decode_attention_times(torch, gen, h, k, d, smax, layers, full=False):
+    """decode_attention on B rows of a path's shapes (bf16), its plain
+    version, SDPA and the bound, cold in L2 as on the path: the calls walk
+    ``layers`` layers' caches.  Lengths are drawn at random, or every row
+    full with ``full``."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
-    L = model.cfg.n_layers
+    H, K, D, SMAX, L = h, k, d, smax, layers
     q, kc, vc, lengths = attention_inputs(gen, B, H, K, D, SMAX,
                                           torch.bfloat16, layers=L)
+    if full:
+        lengths.fill_(SMAX)
     before = decode_attention.launches
     ms = event_ms(lambda i: decode_attention(q, kc[i % L], vc[i % L],
                                              lengths), 200)
@@ -508,6 +553,18 @@ def phase_times(torch, model, gen):
         f"(sum len {int(lengths.clamp(max=SMAX).sum())}): kernel {ms:.4f} ms"
         f", plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms by {by} ({nbytes} B)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=by)
+
+
+def phase_times(torch, model, gen):
+    """decode_attention at the path's shapes, cold in L2 as on the path:
+    the calls walk the 40 layers' caches (~336 MB per tensor at bf16);
+    the decode step's time and profile."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    times = decode_attention_times(torch, gen, H, K, D, SMAX,
+                                   model.cfg.n_layers)
+    before = decode_attention.launches
 
     cache = model.init_cache(B, SMAX)
     tokens = torch.zeros(B, dtype=torch.long, device="cuda")
@@ -528,8 +585,7 @@ def phase_times(torch, model, gen):
         f"{busy['launches']} device kernels, decode_attention "
         f"{busy['attn_ms']:.3f} ms ({busy['attn_ms'] / busy['busy_ms']:.1%}"
         f" of device time)")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=by)
+    return times
 
 
 def mha_pairs(S, T, causal=True, window=0, q_offset=0):
@@ -767,6 +823,197 @@ def phase_ssd_times(torch, model, gen):
                 bound_ms=bound_ms, bound_by=by)
 
 
+# -- phase 2: the RG-LRU scan; phases 11-13: recurrentgemma -----------------
+
+# the RG-LRU kernel's cases: recurrentgemma-9b's prefill shape (4 x 2048
+# tokens, lru_width 4096) and its edges; every case in fp32 and in bf16
+RGLRU = dict(B=4, S=2048, W=4096)
+RGLRU_CASES = [
+    ("path", {}),
+    ("ragged_h0", dict(S=1000, W=4000, h0=True)),   # 4000 % 64 != 0
+    ("one_step", dict(S=1, h0=True)),
+    ("long_memory", dict(long=True)),               # a in (0.999, 1)
+    ("odd_width", dict(S=77, W=13, h0=True)),       # one channel a thread
+]
+# kernel against plain, held to each output's largest magnitude: fp32
+# composes the carry in another order than the plain doubling scan; bf16
+# h rounds to 8 bits of mantissa, h_final stays fp32
+RGLRU_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def rglru_inputs(gen, dtype, B, S, W, h0=False, long=False):
+    """a and b as the model makes them: a = exp(-8 softplus(lam) r) with
+    r a sigmoid, so a spans (0, 1) and reaches ~1e-14; b normal; h0
+    normal or None."""
+    import torch
+    F = torch.nn.functional
+    if long:
+        a = 0.999 + 0.001 * torch.rand((B, S, W), generator=gen,
+                                       device="cuda")
+    else:
+        lam = torch.randn((W,), generator=gen, device="cuda")
+        r = torch.sigmoid(torch.randn((B, S, W), generator=gen,
+                                      device="cuda"))
+        a = torch.exp(-8.0 * F.softplus(lam) * r)
+    b = torch.randn((B, S, W), generator=gen, device="cuda")
+    h = torch.randn((B, W), generator=gen, device="cuda") if h0 else None
+    return a.to(dtype), b.to(dtype), h
+
+
+def phase_rglru(gen):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    errs = {}
+    for name, over in RGLRU_CASES:
+        for dt in ("float32", "bfloat16"):
+            a, b, h0 = rglru_inputs(gen, getattr(torch, dt),
+                                    **{**RGLRU, **over})
+            h, hf = rglru_scan(a, b, h0)
+            h_want, hf_want = ref.rglru(a, b, h0)
+            torch.cuda.synchronize()
+            eh, ef = rel_err(h, h_want), rel_err(hf, hf_want)
+            errs[(name, dt)] = (h.float() - h_want.float()).abs().max().item()
+            log(f"  rglru_scan       {name:13s} {dt:9s} max|err| h "
+                f"{errs[(name, dt)]:.3e} ({eh:.2e} of max), h_final "
+                f"{(hf - hf_want).abs().max().item():.3e} ({ef:.2e} of max) "
+                f"(tol {RGLRU_TOL[dt]} of max)")
+            check(h.dtype == a.dtype and hf.dtype == torch.float32,
+                  f"rglru_scan output dtypes: {name} {dt}")
+            check(bool(torch.isfinite(h).all()), f"rglru_scan: non-finite h "
+                  f"{name} {dt}")
+            check(eh <= RGLRU_TOL[dt] and ef <= RGLRU_TOL[dt],
+                  f"kernel != plain: rglru {name} {dt}")
+            del a, b, h0, h, hf, h_want, hf_want
+    return errs
+
+
+# full-width fp32 through 38 layers: the kernels' summation-order
+# differences carry through the residual stream, as for mamba2
+RG_TOL = 1e-3
+
+
+def phase_rg_fp32(torch, cfg, gen):
+    """Full-width fp32: a prefill, kernels against plain, and prefill
+    against decode (256 tokens: within the 2,048-token window, where a
+    placed prefill cache is in ring order)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import Model
+    from repro_torch.models.model import place_row
+    f32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    model = Model(f32).init(gen)
+    toks = prompts(torch, cfg, SEED + 1, 1, FP32_PROMPT)
+    got, got_cache = model.prefill({"tokens": toks})
+    with mock.patch.object(ops, "rglru", ref.rglru), \
+            mock.patch.object(ops, "mha", ref.mha):
+        want, want_cache = model.prefill({"tokens": toks})
+    errs = {"logits": rel_err(got, want)}
+    errs.update({n: rel_err(got_cache[n], want_cache[n]) for n in got_cache})
+    worst = max(errs, key=errs.get)
+    log(f"  fp32 prefill of {FP32_PROMPT} tokens, kernels vs plain: max|err| "
+        f"of each tensor's largest magnitude: logits {errs['logits']:.3e}, "
+        f"worst of {len(errs)} tensors {worst} {errs[worst]:.3e} (tol "
+        f"{RG_TOL}); |logits| max {want.abs().max().item():.3f}")
+    check(max(errs.values()) <= RG_TOL, "full-width prefill: kernel != plain")
+    check(bool(torch.equal(got.argmax(-1), want.argmax(-1))),
+          "full-width prefill: greedy tokens differ")
+    del want_cache, got_cache
+
+    _, head = model.prefill({"tokens": toks[:, :-1]})
+    row = model.init_cache(1, FP32_PROMPT)
+    place_row(row, head, 0, 0)
+    dec, _ = model.decode_step(toks[:, -1], torch.full(
+        (1,), FP32_PROMPT - 1, dtype=torch.int32, device="cuda"), row)
+    err = rel_err(dec, got)
+    log(f"  fp32 prefill({FP32_PROMPT - 1}) + decode_step vs prefill("
+        f"{FP32_PROMPT}), last position: max|err| {err:.3e} of the largest "
+        f"logit (tol {RG_TOL})")
+    check(err <= RG_TOL, "prefill then decode != prefill")
+    check(bool(torch.equal(dec.argmax(-1), got.argmax(-1))),
+          "prefill then decode: greedy token differs")
+    return err
+
+
+def phase_rg_times(torch, model, gen):
+    """rglru_scan and flash_attention at recurrentgemma's prefill shapes
+    and decode_attention on its rings (bf16), their plain versions, SDPA
+    and the bounds; then one full-width prefill and decode step.  Returns
+    each kernel's times at this path's shapes."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    a, b, _ = rglru_inputs(gen, torch.bfloat16, **RGLRU)
+    before = counts()
+    ms = event_ms(lambda i: rglru_scan(a, b), 50)
+    plain_ms = event_ms(lambda i: ref.rglru(a, b), 5)
+    Bq, S, W = a.shape
+    nbytes = 3 * a.numel() * a.element_size() + Bq * W * 4
+    bound_ms, by = bound(nbytes, 2 * a.numel())
+    log(f"  rglru_scan bf16 B={Bq} S={S} W={W}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, no single PyTorch call, bound {bound_ms:.4f} ms"
+        f" by {by} ({nbytes} B); kernel at {nbytes / ms / 1e9:.3f} TB/s")
+    rg = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+              bound_by=by)
+    del a, b
+
+    shape = {**FLASH, **dict(H=16, K=1, D=256)}
+    (q, k, v), _ = flash_inputs(gen, torch.bfloat16, **shape)
+    fms = event_ms(lambda i: flash_attention(q, k, v), 10)
+    fplain = event_ms(lambda i: ref.mha(q, k, v), 3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    flib = event_ms(lambda i: sdpa(qt, kt, vt, is_causal=True,
+                                   enable_gqa=True), 20)
+    pairs = shape["B"] * shape["H"] * mha_pairs(shape["S"], shape["T"])
+    flops = pairs * 2 * (2 * shape["D"])
+    fbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    fbound, fby = bound(fbytes, flops)
+    log(f"  flash_attention bf16 causal B={shape['B']} S=T={shape['S']} "
+        f"H=16 K=1 D=256: kernel {fms:.4f} ms, plain {fplain:.4f} ms, sdpa "
+        f"{flib:.4f} ms, bound {fbound:.4f} ms by {fby} ({flops} flop, "
+        f"{fbytes} B); kernel at {flops / fms / 1e9:.1f} TFLOP/s")
+    fa = dict(ms=fms, plain_ms=fplain, library_ms=flib, bound_ms=fbound,
+              bound_by=fby)
+    del q, k, v, qt, kt, vt
+    # decode attention on the decode step's full 2,048-entry rings, cold
+    # in L2 over the 12 local-attention layers' caches
+    n_attn = sum(kind == "wattn" for kind in model.kinds)
+    da = decode_attention_times(torch, gen, 16, 1, 256, model.cfg.attn_window,
+                                n_attn, full=True)
+
+    toks = prompts(torch, model.cfg, SEED, PB, PS)
+    pre_ms = host_ms(lambda: model.prefill({"tokens": toks}), 3)
+    names = ("rglru_scan_kernel", "flash_attention_kernel")
+    busy = device_profile(lambda: model.prefill({"tokens": toks}),
+                          names[0], iters=1, others=names)
+    log(f"  recurrentgemma prefill bf16 full width, {PB} x {PS} tokens: "
+        f"{pre_ms:.3f} ms on the host clock, "
+        f"{PB * PS / pre_ms * 1e3:.0f} tokens/s")
+    log(f"  recurrentgemma prefill profile: device busy "
+        f"{busy['busy_ms']:.3f} ms ({busy['busy_ms'] / pre_ms:.1%} of the "
+        f"call), {busy['launches']} device kernels, "
+        + ", ".join(f"{n} {t:.3f} ms ({t / busy['busy_ms']:.1%})"
+                    for n, t in busy["kernel_ms"].items()))
+
+    cache = model.init_cache(ROW_SLOTS, ROW_SMAX)
+    tokens = torch.zeros(ROW_SLOTS, dtype=torch.long, device="cuda")
+    lens = torch.full((ROW_SLOTS,), PS, dtype=torch.int32, device="cuda")
+    step_ms = host_ms(lambda: model.decode_step(tokens, lens, cache), 10)
+    sbusy = device_profile(lambda: model.decode_step(tokens, lens, cache),
+                           "decode_attention_kernel")
+    log(f"  recurrentgemma decode_step bf16 full width, {ROW_SLOTS} slots "
+        f"on 2,048-entry rings: {step_ms:.3f} ms on the host clock "
+        f"({ROW_SLOTS / step_ms * 1e3:.1f} tok/s); device busy "
+        f"{sbusy['busy_ms']:.3f} ms ({sbusy['busy_ms'] / step_ms:.1%} of "
+        f"the step), {sbusy['launches']} device kernels, decode_attention "
+        f"{sbusy['attn_ms']:.3f} ms "
+        f"({sbusy['attn_ms'] / sbusy['busy_ms']:.1%} of device time)")
+    for name, w in wrappers().items():    # timing launches are not the path's
+        w.launches = before[name]
+    return {"rglru_scan": rg, "flash_attention": fa, "decode_attention": da}
+
+
 def host_ms(fn, iters):
     """Host-clock time of ``fn()`` per call, ending in a synchronize."""
     import torch
@@ -779,9 +1026,10 @@ def host_ms(fn, iters):
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def device_profile(fn, kernel, iters=2):
-    """Device time, the named kernel's device time and launches per call of
-    ``fn()``, from torch.profiler."""
+def device_profile(fn, kernel, iters=2, others=()):
+    """Device time, the named kernel's device time (``attn_ms``; each of
+    ``others`` in ``kernel_ms``) and launches per call of ``fn()``, from
+    torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -798,20 +1046,27 @@ def device_profile(fn, kernel, iters=2):
                        getattr(e, "self_cuda_time_total", 0.0))
     busy = sum(dev_us(e) for e in kernels)
     check(busy > 0, "the profiler saw no device time")
+    def named_ms(name):
+        return sum(dev_us(e) for e in kernels if name in e.key) / iters / 1e3
     return dict(
-        busy_ms=busy / iters / 1e3,
-        attn_ms=sum(dev_us(e) for e in kernels
-                    if kernel in e.key) / iters / 1e3,
+        busy_ms=busy / iters / 1e3, attn_ms=named_ms(kernel),
+        kernel_ms={name: named_ms(name) for name in others},
         launches=sum(e.count for e in kernels) // iters)
 
 
 def ptxas_report(text):
     """(instance, line) for each register, shared-memory and spill line of
-    ``nvcc -Xptxas -v``'s report; the instance is the kernel's dtype."""
+    ``nvcc -Xptxas -v``'s report; the instance is the kernel's dtype and
+    its integer template argument, if any (the flash kernel's query tile,
+    the RG-LRU scan's channels per thread)."""
+    import re
     inst = "?"
     for line in text.splitlines():
         if "Compiling entry function" in line:
             inst = "bf16" if "nv_bfloat16" in line else "fp32"
+            arg = re.search(r"Li(\d+)E", line)
+            if arg:
+                inst += f", {arg.group(1)}"
         elif "registers" in line or "spill" in line:
             yield inst, line.split(" : ")[-1].strip()
 
@@ -824,6 +1079,7 @@ def main() -> int:
         return 1
     from repro_torch import configs
     from repro_torch.kernels import build
+    from repro_torch.models import Model
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -843,10 +1099,12 @@ def main() -> int:
     fa = flash_attention._lib().repro_flash_attention_smem_bytes
     sa = ssd_scan._lib().repro_ssd_scan_smem_bytes
     log(f"  dynamic shared memory per block: decode_attention "
-        f"{da(H // K, D, D)} B (g={H // K}, D={D}); flash_attention "
-        f"{fa(D, D)} B (D={D}), {fa(128, 128)} B (D=128), {fa(192, 128)} B "
-        f"(D=192, Dv=128); ssd_scan {sa(256, 64, 128)} B (L=256, P=64, "
-        f"N=128), {sa(256, 128, 64)} B (P=128, N=64)")
+        f"{da(H // K, D, D)} B (g={H // K}, D={D}), {da(16, 256, 256)} B "
+        f"(g=16, D=256); flash_attention {fa(D, D)} B (D={D}), "
+        f"{fa(128, 128)} B (D=128), {fa(192, 128)} B (D=192, Dv=128), "
+        f"{fa(256, 256)} B (D=256, the 32-query tile); ssd_scan "
+        f"{sa(256, 64, 128)} B (L=256, P=64, N=128), {sa(256, 128, 64)} B "
+        f"(P=128, N=64); rglru_scan none")
     log(f"  built in {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -854,6 +1112,7 @@ def main() -> int:
     errs = phase_kernels(gen)
     flash_errs = phase_flash(gen)
     ssd_errs = phase_ssd(gen)
+    rglru_errs = phase_rglru(gen)
     torch.cuda.empty_cache()
 
     cfg = configs.get_config("granite-3-2b")
@@ -863,8 +1122,10 @@ def main() -> int:
     phase_small_against_cpu(torch, configs.get_smoke("granite-3-2b"))
 
     log("phase 4: full-width granite-3-2b prefill, then decode from it")
-    flash_launches = phase_prefill(torch, model,
-                                   ("flash_attention", "decode_attention"))
+    L = cfg.n_layers
+    pre, _ = phase_prefill(torch, model, {"flash_attention": L},
+                           {"decode_attention": L})
+    flash_launches = pre["flash_attention"]
     torch.cuda.empty_cache()
 
     log("phase 5: full-width fp32 decode step and prefill, kernel against "
@@ -884,7 +1145,8 @@ def main() -> int:
     phase_small_against_cpu(torch, configs.get_smoke("mamba2-780m"))
 
     log("phase 8: full-width mamba2-780m prefill, then decode from it")
-    ssd_launches = phase_prefill(torch, mmodel, ("ssd_scan",))
+    ssd_launches = phase_prefill(torch, mmodel, {"ssd_scan": mcfg.n_layers},
+                                 {})[0]["ssd_scan"]
     torch.cuda.empty_cache()
 
     log("phase 9: full-width fp32 mamba2 prefill, kernel against plain")
@@ -893,21 +1155,62 @@ def main() -> int:
 
     log("phase 10: mamba2 times")
     times["ssd_scan"] = phase_ssd_times(torch, mmodel, gen)
+    del mmodel
+    torch.cuda.empty_cache()
+
+    rcfg = configs.get_config("recurrentgemma-9b")
+    log("phase 11: full-width recurrentgemma-9b prefill, then decode from "
+        "it")
+    t0 = time.perf_counter()
+    rmodel = Model(rcfg).init(gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in rmodel.parameters())
+    log(f"  init: {n_params} parameters ({rcfg.param_count()} by "
+        f"ModelConfig.param_count, which leaves out the gates' block-"
+        f"diagonal weights and the norms), "
+        f"{n_params * rcfg.param_dtype.itemsize / 1e9:.3f} GB of "
+        f"{rcfg.param_dtype} in {time.perf_counter() - t0:.1f} s")
+    n_rglru = sum(k == "rglru" for k in rmodel.kinds)
+    n_attn = rcfg.n_layers - n_rglru
+    rg_launches, rg_dec = phase_prefill(
+        torch, rmodel, {"rglru_scan": n_rglru, "flash_attention": n_attn},
+        {"decode_attention": n_attn})
+    torch.cuda.empty_cache()
+
+    log("phase 12: full-width fp32 recurrentgemma prefill, kernels against "
+        "plain")
+    phase_rg_fp32(torch, rcfg, gen)
+    torch.cuda.empty_cache()
+
+    log("phase 13: recurrentgemma times")
+    rg_times = phase_rg_times(torch, rmodel, gen)
+    del rmodel
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
-    path = {"decode_attention": (launches["decode_attention"],
-                                 errs[("path", "bfloat16")]),
-            "flash_attention": (flash_launches,
-                                flash_errs[("path", "bfloat16")]),
-            "ssd_scan": (ssd_launches, ssd_errs[("path", "bfloat16")])}
+    # one entry per (kernel, path): the launches of that path's drive, the
+    # error at that path's shape in phase 2 and the times at that shape
+    rg = "recurrentgemma-9b"
+    entries = [
+        ("decode_attention", "granite-3-2b", launches["decode_attention"],
+         errs[("path", "bfloat16")], times["decode_attention"]),
+        ("flash_attention", "granite-3-2b", flash_launches,
+         flash_errs[("path", "bfloat16")], times["flash_attention"]),
+        ("ssd_scan", "mamba2-780m", ssd_launches,
+         ssd_errs[("path", "bfloat16")], times["ssd_scan"]),
+        ("rglru_scan", rg, rg_launches["rglru_scan"],
+         rglru_errs[("path", "bfloat16")], rg_times["rglru_scan"]),
+        ("flash_attention", rg, rg_launches["flash_attention"],
+         flash_errs[("rg_path", "bfloat16")], rg_times["flash_attention"]),
+        ("decode_attention", rg, rg_dec["decode_attention"],
+         errs[("rg_ring", "bfloat16")], rg_times["decode_attention"])]
     log(json.dumps({"kernels": [dict(
-        name=name, route="cuda", source=src, replaces=replaces,
-        launches=path[name][0], max_abs_err=path[name][1], **times[name])
-        for name, (src, replaces) in KERNELS.items()]}))
+        name=name, path=on, route="cuda", source=KERNELS[name][0],
+        replaces=KERNELS[name][1], launches=n, max_abs_err=err, **t)
+        for name, on, n, err, t in entries]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,9 +2,9 @@
 
 ``get_config(name)`` returns the full published config; ``get_smoke(name)``
 the reduced same-family config the CPU tests use.  The port holds the
-four dense architectures and mamba2 (the SSM family) so far; the other
-architectures of ``repro.configs`` follow with the model families they
-need.
+four dense architectures, mamba2 (the SSM family) and recurrentgemma (the
+hybrid family) so far; the other architectures of ``repro.configs``
+follow with the model families they need.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ _MODULES = {
     "nemotron-4-15b": "nemotron_4_15b",
     "qwen2.5-32b": "qwen2_5_32b",
     "mamba2-780m": "mamba2_780m",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 ARCH_NAMES = list(_MODULES)

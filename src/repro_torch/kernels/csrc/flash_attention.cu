@@ -19,7 +19,7 @@
 // the CUDA cores (67 TFLOP/s), not on the tensor cores (989 TFLOP/s bf16):
 // `wgmma` and TMA, and one K/V tile shared by the g heads of a group, are
 // the next steps.  What it does about the bound now: one block per
-// (query tile of 64, head, row) keeps its running max, running sum and
+// (query tile, head, row) keeps its running max, running sum and
 // accumulator on chip through a loop over tiles of 64 keys, so scores and
 // probabilities never reach device memory; each thread computes a 4 x 8
 // register tile of scores (and of the output) per step from 16-byte
@@ -27,6 +27,11 @@
 // the causal frontier or the window masks for every row of the block is
 // never visited, so a windowed pass does O(S*W) work.  Query tiles are
 // issued longest first, so the causal pass's long rows do not trail.
+//
+// The query tile is 64 rows where its shared memory fits the 227 KB a block
+// may use, and 32 rows (2 x 8 register tiles) above that: at D = Dv = 256
+// (recurrentgemma-9b) a 64-row tile would need 282,624 bytes, a 32-row one
+// needs 208,896.  The accumulator stays in shared memory either way.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,9 +39,9 @@
 
 namespace {
 
-constexpr int kBq = 64;        // queries per block
 constexpr int kBk = 64;        // keys per kv tile
-constexpr int kThreads = 128;  // 16 x 8: each thread 4 query rows x 8 keys
+constexpr int kThreads = 128;  // 16 x 8: each thread BQ/16 query rows x 8 keys
+constexpr size_t kMaxSmem = 232448;  // bytes a block may use on Hopper
 constexpr int kKs = kBk + 4;   // row stride of the transposed K tile
 constexpr float kNegInf = -1e30f;
 
@@ -69,12 +74,36 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// Shared memory, in floats: the scaled query tile transposed (D x kBq), the
+// R consecutive floats of shared memory (one thread's rows of a column)
+template <int R>
+__device__ __forceinline__ void ld_rows(const float* p, float* x) {
+  if constexpr (R == 4) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
+  } else {
+    const float2 u = *reinterpret_cast<const float2*>(p);
+    x[0] = u.x; x[1] = u.y;
+  }
+}
+template <int R>
+__device__ __forceinline__ void st_rows(float* p, const float* x) {
+  if constexpr (R == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+}
+
+// Shared memory, in floats: the scaled query tile transposed (D x bq), the
 // K tile transposed (D x kKs), the V tile (kBk x Dv), the probabilities
-// transposed (kBk x kBq) and the accumulator (kBq x Dv).
-__host__ __device__ inline size_t smem_floats(int D, int Dv) {
-  return (size_t)D * kBq + (size_t)D * kKs + (size_t)kBk * Dv +
-         (size_t)kBk * kBq + (size_t)kBq * Dv;
+// transposed (kBk x bq) and the accumulator (bq x Dv).
+__host__ __device__ inline size_t smem_floats(int D, int Dv, int bq) {
+  return (size_t)D * bq + (size_t)D * kKs + (size_t)kBk * Dv +
+         (size_t)kBk * bq + (size_t)bq * Dv;
+}
+
+// Queries per block: 64 where that fits, else 32.
+inline int query_tile(int D, int Dv) {
+  return smem_floats(D, Dv, 64) * sizeof(float) <= kMaxSmem ? 64 : 32;
 }
 
 // The keys [lo, hi) that query position qp keeps; a row that keeps none
@@ -90,7 +119,7 @@ __device__ __forceinline__ void row_range(int64_t qp, int T, bool causal,
   hi = empty ? T : (int)h;
 }
 
-template <typename T>
+template <typename T, int BQ>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int S,
@@ -100,20 +129,21 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        float scale, float softcap, int causal, int window,
                        int64_t q_offset) {
   constexpr int kVec = 16 / sizeof(T);  // elements in a 16-byte load
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBq;  // longest rows first
+  constexpr int RQ = BQ / 16;           // query rows per thread
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest rows first
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
   const int kh = h / (H / K);
   const int tid = threadIdx.x;
-  const int ty = tid >> 3;  // rows ty*4 .. ty*4+3
+  const int ty = tid >> 3;  // rows ty*RQ .. ty*RQ+RQ-1
   const int tx = tid & 7;   // keys / value columns, see col() below
 
   extern __shared__ float4 smem4[];
   float* qT = reinterpret_cast<float*>(smem4);
-  float* kT = qT + (size_t)D * kBq;
+  float* kT = qT + (size_t)D * BQ;
   float* vs = kT + (size_t)D * kKs;
   float* pT = vs + (size_t)kBk * Dv;
-  float* acc = pT + kBk * kBq;
+  float* acc = pT + kBk * BQ;
   __shared__ int s_lo, s_hi;
 
   const T* qb = q + b * q_sb + h * q_sh;
@@ -126,7 +156,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     s_hi = 0;
   }
   __syncthreads();
-  if (tid < kBq && q0 + tid < S) {
+  if (tid < BQ && q0 + tid < S) {
     int lo, hi;
     bool empty;
     row_range(q_offset + q0 + tid, Tk, causal, window, lo, hi, empty);
@@ -136,8 +166,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // the query tile, scaled, transposed; lanes walk rows so that the
   // transposed stores fall in distinct banks
-  for (int i = tid; i < kBq * (D / kVec); i += kThreads) {
-    const int r = i % kBq, c = i / kBq;
+  for (int i = tid; i < BQ * (D / kVec); i += kThreads) {
+    const int r = i % BQ, c = i / BQ;
     float x[kVec];
     if (q0 + r < S) {
       load16(qb + (q0 + r) * q_ss + c * kVec, x);
@@ -146,16 +176,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < kVec; ++j) x[j] = 0.f;
     }
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) qT[(c * kVec + j) * kBq + r] = x[j] * scale;
+    for (int j = 0; j < kVec; ++j) qT[(c * kVec + j) * BQ + r] = x[j] * scale;
   }
-  for (int i = tid; i < kBq * Dv; i += kThreads) acc[i] = 0.f;
+  for (int i = tid; i < BQ * Dv; i += kThreads) acc[i] = 0.f;
 
-  int lo[4], hi[4];
-  bool empty[4];
-  float m[4], l[4];
+  int lo[RQ], hi[RQ];
+  bool empty[RQ];
+  float m[RQ], l[RQ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    row_range(q_offset + q0 + ty * 4 + i, Tk, causal, window, lo[i], hi[i],
+  for (int i = 0; i < RQ; ++i) {
+    row_range(q_offset + q0 + ty * RQ + i, Tk, causal, window, lo[i], hi[i],
               empty[i]);
     m[i] = kNegInf;
     l[i] = 0.f;
@@ -197,27 +227,27 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    float s[4][8];
+    float s[RQ][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RQ; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
     for (int d = 0; d < D; ++d) {
-      const float4 qa = ld4(qT + d * kBq + ty * 4);
+      float qv[RQ];
+      ld_rows<RQ>(qT + d * BQ + ty * RQ, qv);
       const float4 k0 = ld4(kT + d * kKs + tx * 4);
       const float4 k1 = ld4(kT + d * kKs + 32 + tx * 4);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
       const float kv[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RQ; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
     // online softmax; the 8 lanes of a row are neighbours in the warp
-    float alpha[4];
+    float alpha[RQ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RQ; ++i) {
       unsigned keep = 0;
       float mx = kNegInf;
 #pragma unroll
@@ -251,24 +281,27 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m[i] = m_new;
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<float4*>(pT + col(j) * kBq + ty * 4) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    for (int j = 0; j < 8; ++j) {
+      float pc[RQ];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) pc[i] = s[i][j];
+      st_rows<RQ>(pT + col(j) * BQ + ty * RQ, pc);
+    }
     __syncthreads();
 
-    // acc = alpha * acc + P V, on the thread's own 4 rows x 8 columns of
+    // acc = alpha * acc + P V, on the thread's own RQ rows x 8 columns of
     // each 64-column chunk (no other thread touches them)
     for (int c0 = 0; c0 < Dv; c0 += 64) {
-      float a[4][8];
+      float a[RQ][8];
       bool in[2];
 #pragma unroll
       for (int g = 0; g < 2; ++g) in[g] = c0 + col(4 * g) < Dv;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RQ; ++i)
 #pragma unroll
         for (int g = 0; g < 2; ++g) {
           float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (in[g]) x = ld4(acc + (ty * 4 + i) * Dv + c0 + col(4 * g));
+          if (in[g]) x = ld4(acc + (ty * RQ + i) * Dv + c0 + col(4 * g));
           a[i][4 * g] = x.x * alpha[i];
           a[i][4 * g + 1] = x.y * alpha[i];
           a[i][4 * g + 2] = x.z * alpha[i];
@@ -276,24 +309,24 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       const int n = min(kBk, Tk - t0);
       for (int t = 0; t < n; ++t) {
-        const float4 pa = ld4(pT + t * kBq + ty * 4);
+        float pv[RQ];
+        ld_rows<RQ>(pT + t * BQ + ty * RQ, pv);
         const float4 v0 =
             in[0] ? ld4(vs + t * Dv + c0 + col(0)) : make_float4(0, 0, 0, 0);
         const float4 v1 =
             in[1] ? ld4(vs + t * Dv + c0 + col(4)) : make_float4(0, 0, 0, 0);
-        const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
         const float vv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < RQ; ++i)
 #pragma unroll
           for (int j = 0; j < 8; ++j) a[i][j] = fmaf(pv[i], vv[j], a[i][j]);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RQ; ++i)
 #pragma unroll
         for (int g = 0; g < 2; ++g)
           if (in[g])
-            *reinterpret_cast<float4*>(acc + (ty * 4 + i) * Dv + c0 +
+            *reinterpret_cast<float4*>(acc + (ty * RQ + i) * Dv + c0 +
                                        col(4 * g)) =
                 make_float4(a[i][4 * g], a[i][4 * g + 1], a[i][4 * g + 2],
                             a[i][4 * g + 3]);
@@ -302,8 +335,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // out (B, S, H, Dv), contiguous; each thread writes what it accumulated
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
+  for (int i = 0; i < RQ; ++i) {
+    const int r = ty * RQ + i;
     if (q0 + r >= S) continue;
     T* orow = out + (((size_t)b * S + q0 + r) * H + h) * Dv;
     for (int c0 = 0; c0 < Dv; c0 += 64)
@@ -315,20 +348,20 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, int BQ>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int S, int Tk, int H, int K, int D, int Dv,
                    const int64_t* strides, float scale, float softcap,
                    int causal, int window, int64_t q_offset,
                    cudaStream_t stream) {
-  const size_t smem = smem_floats(D, Dv) * sizeof(float);
-  auto kernel = flash_attention_kernel<T>;
+  const size_t smem = smem_floats(D, Dv, BQ) * sizeof(float);
+  auto kernel = flash_attention_kernel<T, BQ>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((S + kBq - 1) / kBq, B * H);
+  const dim3 grid((S + BQ - 1) / BQ, B * H);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), S, Tk, H, K, D, Dv,
@@ -338,13 +371,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_tile(const void* q, const void* k, const void* v,
+                        void* out, int B, int S, int Tk, int H, int K, int D,
+                        int Dv, const int64_t* strides, float scale,
+                        float softcap, int causal, int window,
+                        int64_t q_offset, cudaStream_t stream) {
+  if (query_tile(D, Dv) == 64)
+    return launch<T, 64>(q, k, v, out, B, S, Tk, H, K, D, Dv, strides, scale,
+                         softcap, causal, window, q_offset, stream);
+  return launch<T, 32>(q, k, v, out, B, S, Tk, H, K, D, Dv, strides, scale,
+                       softcap, causal, window, q_offset, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block needs, in bytes (the wrapper checks it fits).
+// Shared memory one block of a launch at (D, Dv) uses, in bytes, with the
+// query tile the launch picks (the wrapper checks it fits).
 size_t repro_flash_attention_smem_bytes(int D, int Dv) {
-  return smem_floats(D, Dv) * sizeof(float);
+  return smem_floats(D, Dv, query_tile(D, Dv)) * sizeof(float);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).
@@ -359,11 +406,12 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
                           int64_t q_offset, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, out, B, S, T, H, K, D, Dv, strides, scale,
-                         softcap, causal, window, q_offset, s);
+    return launch_tile<float>(q, k, v, out, B, S, T, H, K, D, Dv, strides,
+                              scale, softcap, causal, window, q_offset, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, B, S, T, H, K, D, Dv, strides,
-                                 scale, softcap, causal, window, q_offset, s);
+    return launch_tile<__nv_bfloat16>(q, k, v, out, B, S, T, H, K, D, Dv,
+                                      strides, scale, softcap, causal, window,
+                                      q_offset, s);
   return cudaErrorInvalidValue;
 }
 

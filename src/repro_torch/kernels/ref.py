@@ -6,7 +6,8 @@ them for tensors that lie on the CPU; on the card they serve only as the
 yardstick the kernels are held against.
 
 Shape conventions: B batch, S query seq, T key seq, H query heads, K kv
-heads, D head dim; for the SSD scan P head dim, G groups, N state dim.
+heads, D head dim; for the SSD scan P head dim, G groups, N state dim;
+for the RG-LRU W width.
 """
 from __future__ import annotations
 
@@ -227,3 +228,42 @@ def ssd_decode(
     if D is not None:
         y = y + xf * D.float()[None, :, None]
     return y.to(x.dtype), new_state
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU linear recurrence (Griffin / recurrentgemma)
+# ---------------------------------------------------------------------------
+
+def rglru(
+    a: torch.Tensor,           # (B, S, W) — per-step decay in (0,1)
+    b: torch.Tensor,           # (B, S, W) — per-step input term
+    h0: Optional[torch.Tensor] = None,   # (B, W)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_t = a_t * h_{t-1} + b_t in fp32, h0 folded into the first input
+    term.  Returns (h (B,S,W) in a's dtype, h_final (B,W) fp32).
+
+    The reference runs an associative scan; this is the same scan by
+    doubling (log2 S passes, each step combined with the one d before
+    it).  No running product is divided out: a_t reaches ~1e-30 and a
+    product over 2,048 steps underflows to 0, which the combine takes
+    as it is."""
+    af = a.float()
+    bf = b.float()
+    if h0 is not None:
+        bf = bf.clone()
+        bf[:, 0] += af[:, 0] * h0.float()
+    S = af.shape[1]
+    d = 1
+    while d < S:
+        # (a1, b1) earlier, (a2, b2) later -> (a1*a2, a2*b1 + b2)
+        bf = torch.cat([bf[:, :d], af[:, d:] * bf[:, :-d] + bf[:, d:]], 1)
+        af = torch.cat([af[:, :d], af[:, :-d] * af[:, d:]], 1)
+        d *= 2
+    return bf.to(a.dtype), bf[:, -1]
+
+
+def rglru_decode(a: torch.Tensor, b: torch.Tensor,
+                 h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step: a, b, h all (B, W).  Returns (h in a's dtype, h fp32)."""
+    hf = a.float() * h.float() + b.float()
+    return hf.to(a.dtype), hf

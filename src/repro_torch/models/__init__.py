@@ -1,4 +1,5 @@
-"""The port's model zoo: the dense and SSM (mamba2) families so far."""
+"""The port's model zoo: the dense, SSM (mamba2) and hybrid
+(recurrentgemma) families so far."""
 from .common import ModelConfig, resolve_device
 from .model import Model
 

@@ -153,6 +153,16 @@ class ServingEngine:
                  tracer: Optional[Any] = None,
                  retry: Optional[RetryPolicy] = None,
                  checkpoint_every: Optional[int] = None):
+        if model.hybrid:
+            # the reference engine's first turn raises ValueError in
+            # _commit: its (layers, slots, ...) mask does not fit the
+            # hybrid's tail leaves, which have no layer axis (ROADMAP
+            # queue 3); the port serves no more than the reference does
+            raise NotImplementedError(
+                f"{model.cfg.name}: the serving engine does not serve the "
+                "hybrid family (the reference engine fails in _commit on "
+                "its tail caches); run it through Model.prefill and "
+                "decode_step")
         self.model = model
         # optional tracer with the method names of the reference's
         # TraceRecorder (begin/span/instant/complete): every turn becomes

@@ -34,8 +34,8 @@ def test_imports_neither_jax_nor_repro(path):
 def test_the_file_list_covers_the_package():
     names = {p.name for p in FILES}
     assert {"engine.py", "model.py", "decode_attention.py",
-            "flash_attention.py", "ssd_scan.py", "ssd.py",
-            "chip_smoke.py"} <= names
+            "flash_attention.py", "ssd_scan.py", "ssd.py", "rglru_scan.py",
+            "rglru.py", "chip_smoke.py"} <= names
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -48,7 +48,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Model(configs.get_smoke("mamba2-780m"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        Model(configs.get_smoke("recurrentgemma-9b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         make_adapter(0, "a", cfg.d_model, cfg.vocab_size)
     assert Model(cfg, device="cpu").device == torch.device("cpu")
     assert Model(configs.get_smoke("mamba2-780m"),
+                 device="cpu").device == torch.device("cpu")
+    assert Model(configs.get_smoke("recurrentgemma-9b"),
                  device="cpu").device == torch.device("cpu")

@@ -88,7 +88,6 @@ def test_model_has_ssd_blocks_without_mlp(pair):
 
 
 @pytest.mark.parametrize("change", [
-    dict(family="hybrid", block_pattern=("rglru", "rglru", "attn")),
     dict(family="moe", n_experts=4, moe_top_k=2),
     dict(family="dense", mla=True),
     dict(family="vlm", frontend="vision"),
